@@ -1,16 +1,17 @@
-"""fqtk-tpu: a TPU-native FASTQ toolkit.
+"""fqtk-tpu: a FASTQ toolkit with a device-batched barcode matcher.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``fulcrumgenomics/fqtk`` (sample demultiplexing and subsampling of FASTQ
-files): batched IUPAC one-hot barcode matching on the MXU, data-parallel
-streaming over device meshes, and native host I/O.
+files): batched IUPAC one-hot barcode matching as an integer matrix product
+on the accelerator, data-parallel streaming over device meshes, and native
+host I/O.
 
 Layers (see SURVEY.md §1):
 
 - ``fqtk_tpu.core``     — pure host logic: encoding tables, read structures,
                           sample metadata, header rewriting.
 - ``fqtk_tpu.ops``      — device compute: batched mismatch counting + top-2
-                          assignment (XLA einsum path and Pallas kernel).
+                          assignment (XLA scan and a fused Triton kernel).
 - ``fqtk_tpu.parallel`` — mesh/sharding: data-parallel reads, K-sharded
                           whitelists, collective metric merges.
 - ``fqtk_tpu.io``       — FASTQ parsing and BGZF writing (Python fallback +

@@ -20,7 +20,8 @@ from . import __version__
 
 def _build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        prog="fqtk-tpu", description="TPU-native FASTQ toolkit"
+        prog="fqtk-tpu",
+        description="FASTQ toolkit: sample demultiplexing and subsampling",
     )
     parser.add_argument("--version", action="version", version=f"fqtk-tpu {__version__}")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -97,10 +98,11 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     demux.add_argument(
         "--engine",
-        choices=["auto", "native", "jax", "pallas", "numpy"],
+        choices=["auto", "native", "jax", "numpy"],
         default="auto",
-        help="Compute engine: auto = C++ host I/O + JAX matcher when "
-        "available (engine extension).",
+        help="Compute engine: auto = native (C++ host I/O + device or host "
+        "matcher; built on first use, an error if it cannot be); jax and "
+        "numpy are the Python-I/O reference engines (engine extension).",
     )
     demux.add_argument(
         "--matcher",

@@ -1,7 +1,7 @@
 """Fixed-width bit-packed sequence vector (library parity with the
 reference's ``BitEnc``, ``/root/reference/src/lib/bitenc.rs``).
 
-The TPU compute path does NOT use this packing (byte-per-base arrays map
+The device compute path does NOT use this packing (byte-per-base arrays map
 better onto XLA tiling; see ``fqtk_tpu.ops.matcher``), but the packed
 representation is part of the reference library surface, so it is provided
 for host-side users: widths up to 8 bits packed into 32-bit blocks, plus the

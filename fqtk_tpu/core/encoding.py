@@ -1,9 +1,9 @@
 """IUPAC one-hot (4-bit mask) encoding of DNA bases.
 
-TPU-native counterpart of the reference's bit-packed encoding
+Device-side counterpart of the reference's bit-packed encoding
 (``/root/reference/src/lib/mod.rs:7-92`` and ``src/lib/bitenc.rs``): instead of
 packing 4-bit codes into ``u32`` blocks for scalar popcount loops, we keep one
-``uint8`` mask per base laid out in flat arrays, because on TPU the
+``uint8`` mask per base laid out in flat arrays, because on the device the
 mismatch-count reduction is a batched matmul over a one-hot expansion (see
 ``fqtk_tpu.ops.matcher``) and byte-per-base is the layout XLA tiles best.
 

@@ -16,7 +16,7 @@ A read structure is a sequence of ``<number><operator>`` pairs, e.g.
 The final pair may use ``+`` instead of a number, meaning "all remaining
 bases" (variable length); only the last segment may be variable.
 
-Segment offsets are static, so for the TPU pipeline they compile to fixed
+Segment offsets are static, so for the device pipeline they compile to fixed
 slice plans over batched byte arrays (no per-read control flow on device).
 """
 

@@ -4,17 +4,20 @@ The native engine owns the demux host pipeline: FASTQ parsing (gzip-aware,
 zero-copy into batch arenas), segment extraction, header rewriting, and
 routed BGZF output with a compressor thread pool — run as a persistent
 in-engine pipeline (``pipe_start``/``pipe_acquire``/``pipe_submit``/
-``pipe_finish``).  Python's only per-window work is the TPU matcher call
+``pipe_finish``).  Python's only per-window work is the device matcher call
 between acquire and submit.
 
-Falls back gracefully (``available() -> False``) when the shared library is
-missing; the pure-Python path in :mod:`fqtk_tpu.io.fastq` is the behavioral
-reference and the two must produce identical decompressed bytes.
+The shared library is built from source on first use (``make -C native``)
+and rebuilt when the source is newer.  A failed build or load raises
+:class:`NativeLibraryError`: the native path never degrades silently to
+the pure-Python engine (:mod:`fqtk_tpu.io.fastq`, the behavioral
+reference — the two must produce identical decompressed bytes).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
@@ -23,26 +26,38 @@ import numpy as np
 
 _LIB_PATH = Path(__file__).resolve().parent.parent.parent / "native" / "libfqtk_io.so"
 _lib: Optional[ctypes.CDLL] = None
-_load_failed = False
+_load_error: Optional[str] = None
 
 
-def _try_build() -> None:
-    makefile = _LIB_PATH.parent / "Makefile"
-    if makefile.exists():
-        try:
-            subprocess.run(
-                ["make", "-C", str(_LIB_PATH.parent)],
-                capture_output=True,
-                timeout=120,
-                check=False,
-            )
-        except Exception:
-            pass
+class NativeDemuxError(RuntimeError):
+    pass
+
+
+class NativeLibraryError(NativeDemuxError):
+    """The native library could not be built or loaded."""
+
+
+def _build() -> None:
+    """``make -C native``; raises with the compiler's output on failure."""
+    try:
+        r = subprocess.run(
+            ["make", "-C", str(_LIB_PATH.parent)],
+            capture_output=True,
+            text=True,
+            timeout=600,
+            check=False,
+        )
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise NativeLibraryError(f"building native/libfqtk_io.so failed: {e}")
+    if r.returncode != 0 or not _LIB_PATH.exists():
+        raise NativeLibraryError(
+            "building native/libfqtk_io.so failed (make -C native, rc "
+            f"{r.returncode}):\n{(r.stderr or r.stdout)[-2000:]}"
+        )
 
 
 def _is_stale() -> bool:
-    """True when a source edit postdates the committed .so (would otherwise
-    silently load a build diverging from ``native/fqtk_io.cpp``)."""
+    """True when a source edit postdates the built .so."""
     src = _LIB_PATH.parent / "fqtk_io.cpp"
     try:
         return src.stat().st_mtime > _LIB_PATH.stat().st_mtime
@@ -50,44 +65,35 @@ def _is_stale() -> bool:
         return False
 
 
-def get_lib() -> Optional[ctypes.CDLL]:
-    global _lib, _load_failed
-    if _lib is not None or _load_failed:
-        return _lib
-    import os
-
-    override = os.environ.get("FQTK_NATIVE_LIB")
-    if override:
-        # Sanitizer harness hook (scripts/sanitize.sh): load an instrumented
-        # build instead of the production .so; same C API.
-        try:
-            lib = ctypes.CDLL(override)
-        except OSError:
-            _load_failed = True
-            return None
-        _bind(lib)
-        _lib = lib
-        return _lib
-    if not _LIB_PATH.exists() or _is_stale():
-        _try_build()
-        if _LIB_PATH.exists() and _is_stale():
-            import logging
-
-            logging.getLogger("fqtk").warning(
-                "native/fqtk_io.cpp is newer than libfqtk_io.so and the "
-                "rebuild failed; loading the STALE binary (run `make -C "
-                "native` to see the build error)"
-            )
-    if not _LIB_PATH.exists():
-        _load_failed = True
-        return None
+def _load() -> ctypes.CDLL:
+    # Sanitizer harness hook (scripts/sanitize.sh): load an instrumented
+    # build instead of the production .so; same C API.
+    path = os.environ.get("FQTK_NATIVE_LIB")
+    if not path:
+        if not _LIB_PATH.exists() or _is_stale():
+            _build()
+        path = str(_LIB_PATH)
     try:
-        lib = ctypes.CDLL(str(_LIB_PATH))
-    except OSError:
-        _load_failed = True
-        return None
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        raise NativeLibraryError(f"loading {path} failed: {e}")
     _bind(lib)
-    _lib = lib
+    return lib
+
+
+def get_lib() -> ctypes.CDLL:
+    """The loaded native library, built on first use; raises
+    :class:`NativeLibraryError` (every call, once failed) if it cannot be
+    built or loaded."""
+    global _lib, _load_error
+    if _lib is None:
+        if _load_error is not None:
+            raise NativeLibraryError(_load_error)
+        try:
+            _lib = _load()
+        except NativeLibraryError as e:
+            _load_error = str(e)
+            raise
     return _lib
 
 
@@ -211,6 +217,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fqtk_smallk_free.argtypes = [ctypes.c_void_p]
     lib.fqtk_simd_level.restype = ctypes.c_int
     lib.fqtk_simd_level.argtypes = []
+    lib.fqtk_deflate_backend.restype = ctypes.c_int
+    lib.fqtk_deflate_backend.argtypes = []
     lib.fqtk_inflate_bench.restype = ctypes.c_int64
     lib.fqtk_inflate_bench.argtypes = [
         ctypes.c_char_p,
@@ -274,7 +282,13 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 def available() -> bool:
-    return get_lib() is not None
+    """Whether the native library builds and loads here (test and tool
+    guards; the product path calls :func:`get_lib` and lets it raise)."""
+    try:
+        get_lib()
+    except NativeLibraryError:
+        return False
+    return True
 
 
 def inflate_bench(path) -> tuple:
@@ -288,8 +302,6 @@ def inflate_bench(path) -> tuple:
     throughput.  Multi-member/BGZF inputs are block-parallel decodable in
     principle, so no serial bound is claimed for them."""
     lib = get_lib()
-    if lib is None:
-        raise NativeDemuxError("native library unavailable")
     cpu = ctypes.c_double(0.0)
     kind = ctypes.c_int(0)
     n = lib.fqtk_inflate_bench(
@@ -305,13 +317,12 @@ def simd_level() -> int:
     """Resolved candidate-scan dispatch level (0=scalar, 1=avx2, 2=avx512):
     min(FQTK_SIMD cap, CPU capability), read fresh from the environment."""
     lib = get_lib()
-    if lib is None:
-        raise NativeDemuxError("native library unavailable")
     return int(lib.fqtk_simd_level())
 
 
-class NativeDemuxError(RuntimeError):
-    pass
+def deflate_backend() -> str:
+    """The deflate library the native build linked: "libdeflate" or "zlib"."""
+    return "libdeflate" if get_lib().fqtk_deflate_backend() else "zlib"
 
 
 class NativeDemuxEngine:
@@ -319,8 +330,6 @@ class NativeDemuxEngine:
 
     def __init__(self, threads: int, compression_level: int):
         lib = get_lib()
-        if lib is None:
-            raise NativeDemuxError("native library unavailable")
         self._lib = lib
         self._h = lib.fqtk_demux_new(threads, compression_level)
         self._finished = False
@@ -543,8 +552,6 @@ class NativeSubsampleEngine:
 
     def __init__(self, threads: int, compression_level: int):
         lib = get_lib()
-        if lib is None:
-            raise NativeDemuxError("native library unavailable")
         self._lib = lib
         self._h = lib.fqtk_subsample_new(threads, compression_level)
 
@@ -595,7 +602,7 @@ class NativeSubsampleEngine:
             "native_compress_in_bytes": buf[2],
             "native_compress_out_bytes": buf[3],
             # core-s finished readers waited at the per-chunk barrier for
-            # the slowest input (lockstep skew; see DESIGN.md r5 subsample)
+            # the slowest input (lockstep skew)
             "native_lockstep_skew": buf[4],
         }
 
@@ -623,7 +630,7 @@ class NativeChaChaMask:
 
     def __init__(self, seed: int):
         lib = get_lib()
-        if lib is None or not hasattr(lib, "fqtk_rng_new"):
+        if not hasattr(lib, "fqtk_rng_new"):
             raise NativeDemuxError("native rng unavailable")
         self._lib = lib
         self._h = lib.fqtk_rng_new(ctypes.c_uint64(seed & (2**64 - 1)))
@@ -662,8 +669,6 @@ class NativeBigKMatcher:
     def __init__(self, barcodes, max_mismatches: int, min_delta: int,
                  threads: int = 4):
         lib = get_lib()
-        if lib is None:
-            raise NativeDemuxError("native library unavailable")
         self._lib = lib
         self._threads = threads
         if not barcodes:
@@ -722,8 +727,6 @@ class NativeSmallKMatcher:
     def __init__(self, barcodes, max_mismatches: int, min_delta: int,
                  threads: int = 4):
         lib = get_lib()
-        if lib is None:
-            raise NativeDemuxError("native library unavailable")
         self._lib = lib
         self._threads = threads
         if not barcodes:
@@ -777,8 +780,6 @@ class NativeBgzfWriter:
 
     def __init__(self, path, compression_level: int = 5, threads: int = 4):
         lib = get_lib()
-        if lib is None:
-            raise NativeDemuxError("native library unavailable")
         self._lib = lib
         self._h = lib.fqtk_bgzf_open(str(path).encode(), compression_level, threads)
         if not self._h:

@@ -1,8 +1,8 @@
 """Device-side byte -> IUPAC-mask encoding without gathers.
 
-``lut[bytes]`` lowers to scalar gathers on TPU (~150 ms for a 1M x 17 batch,
-measured); a chain of ~20 vectorized compares is ~30x faster and fuses into
-neighboring ops.  Semantics identical to :data:`fqtk_tpu.core.encoding.ENCODE_LUT`:
+A chain of ~20 vectorized compares instead of ``lut[bytes]``: the compares
+fuse into neighboring elementwise ops, where a table lookup lowers to a
+gather.  Semantics identical to :data:`fqtk_tpu.core.encoding.ENCODE_LUT`:
 
 - no-call bytes ``N``/``n``/``.`` -> 15
 - otherwise uppercase, then IUPAC mask (0 for non-IUPAC bytes)

@@ -1,4 +1,4 @@
-"""Batched barcode matching: the TPU-native core of demultiplexing.
+"""Batched barcode matching: the device-side core of demultiplexing.
 
 Reference semantics being reproduced (``/root/reference/src/lib/barcode_matching.rs``
 and ``src/lib/bitenc.rs:432-459``):
@@ -15,16 +15,18 @@ and ``src/lib/bitenc.rs:432-459``):
   (``barcode_matching.rs:170-172``).
 - mismatch counts saturate at 255 (u8 semantics of the reference).
 
-TPU mapping: rather than the reference's scalar ``u32``-block popcount loop
-with memoization, we batch ``B`` reads and compute ALL pairwise mismatch
-counts with one int8 matrix multiplication on the MXU:
+Device mapping: rather than the reference's scalar ``u32``-block popcount
+loop with memoization, we batch ``B`` reads and compute ALL pairwise
+mismatch counts with one matrix multiplication of 0/1 operands:
 
 - observed bytes -> 4-bit masks via a 256-entry LUT -> one-hot over the 16
   possible mask values: ``obs16[B, L*16]``.
 - expected side: ``compat[L*16, K]`` with ``compat[l*16+c, k] = 1`` iff mask
   value ``c`` mismatches expected base ``(k, l)``.
-- ``counts[B, K] = obs16 @ compat`` accumulated in int32 — an exact mismatch
-  count, since each (read, position) contributes exactly one nonzero column.
+- ``counts[B, K] = obs16 @ compat`` — an exact mismatch count, since each
+  (read, position) contributes exactly one nonzero column (bf16 operands
+  with f32 accumulation here; int8 with int32 in the fused kernel,
+  :mod:`fqtk_tpu.ops.pallas_matcher`).
 
 The per-read memo cache of the reference is subsumed by batching.  Top-2 with
 first-index tie-breaking is computed by scanning K in chunks with an
@@ -183,25 +185,11 @@ def merge_top2(a, b):
     return best, idx, nxt
 
 
-def _chunk_top2(counts):
-    """Top-2 (best, argmin-first, next) over the last axis of ``counts``."""
-    import jax.numpy as jnp
-
-    best_idx = jnp.argmin(counts, axis=-1).astype(jnp.int32)
-    best = jnp.min(counts, axis=-1)
-    k = counts.shape[-1]
-    col = jnp.arange(k, dtype=jnp.int32)
-    masked = jnp.where(col[None, :] == best_idx[:, None], MAX_COUNT, counts)
-    nxt = jnp.min(masked, axis=-1) if k > 1 else jnp.full_like(best, MAX_COUNT)
-    return best, best_idx, nxt
-
-
 def make_assign_fn(
     expected: ExpectedSet,
     max_mismatches: int,
     min_mismatch_delta: int,
     k_chunk: int = 16384,
-    accum_dtype=None,
     packed_masks: bool = False,
     packed2: bool = False,
     compact_output: bool = False,
@@ -211,9 +199,12 @@ def make_assign_fn(
     ``assigned[b] == expected.count`` denotes unmatched (dense sentinel so the
     result can index a ``K+1``-row routing table on device).
 
-    K is processed in chunks of ``k_chunk`` via ``lax.scan`` so the [B, K]
-    mismatch matrix is never materialized — required for huge single-cell
-    whitelists (737K barcodes) and HBM-friendly for all sizes.
+    K is processed in chunks of ``k_chunk`` via ``lax.scan`` so the full
+    [B, K] mismatch matrix never exists at once — required for huge
+    single-cell whitelists (737K barcodes).  The chunk is bounded twice:
+    the f32 combined key below is exact only for ``k_chunk <= 2^15``, and
+    each chunk's ``[B, k_chunk]`` f32 counts are materialized in device
+    memory (8 GiB at the production batch of 2^17 rows and 16384 columns).
 
     ``packed_masks``: input is ``[B, ceil(L/2)] uint8`` with two 4-bit IUPAC
     masks per byte (low nibble = even position) instead of raw ASCII — halves
@@ -222,10 +213,10 @@ def make_assign_fn(
 
     ``packed2``: input is ``[B, ceil(L/4)] uint8`` with four 2-bit ACGT
     codes per byte (low pair = lowest position) — QUARTER-width transfers
-    and a 4x narrower one-hot contraction on the MXU.  Only pure-ACGT/U
-    reads can be encoded; the native engine flags ambiguous rows as
-    exceptional and the driver resolves them host-side (including the
-    no-call gate, so this path skips it entirely).
+    and a 4x narrower one-hot contraction.  Only pure-ACGT/U reads can be
+    encoded; the native engine flags ambiguous rows as exceptional and the
+    driver resolves them host-side (including the no-call gate, so this
+    path skips it entirely).
 
     ``compact_output``: return ``assigned`` as uint8 when ``K < 255`` (4x
     less device->host traffic).
@@ -235,6 +226,8 @@ def make_assign_fn(
 
     if packed_masks and packed2:
         raise ValueError("packed_masks and packed2 are mutually exclusive")
+    if not 1 <= k_chunk <= 1 << 15:
+        raise ValueError(f"k_chunk must be in [1, 2^15], got {k_chunk}")
     k = expected.count
     length = expected.length
     kc = min(k_chunk, k)
@@ -251,9 +244,7 @@ def make_assign_fn(
         compat = expected.compat
     onehot_width = 4 if packed2 else 16
     if k_pad != k:
-        # Padding columns get "every position mismatches" so they never win
-        # (count = L, and if L < delta gates they still lose to real columns;
-        # to be safe, force them to MAX_COUNT after the matmul via index mask).
+        # padding columns are masked to MAX_COUNT in the scan body
         pad = np.ones((compat.shape[0], k_pad - k), dtype=np.int8)
         compat = np.concatenate([compat, pad], axis=1)
     # [n_chunks, L*W, kc] so scan slices are contiguous (W = one-hot width)
@@ -261,7 +252,6 @@ def make_assign_fn(
         compat.reshape(length * onehot_width, n_chunks, kc).transpose(1, 0, 2)
     )
     nocall_budget = max_mismatches + expected.max_ns_in_barcodes
-    acc = accum_dtype or jnp.int32
 
     from .device_encoding import (
         byte_is_nocall,
@@ -271,76 +261,57 @@ def make_assign_fn(
     )
 
     # Device-resident whitelist passed as an argument (constants this large
-    # bloat the compiled program; see pallas_matcher for the same pattern).
-    compat_chunks_dev = jax.device_put(compat_chunks)
+    # bloat the compiled program).  bf16 operands with f32 accumulation:
+    # every operand is 0 or 1 and every count <= L, all exact — never f32
+    # operands, which a GPU may multiply in TF32.
+    compat_chunks_dev = jax.device_put(compat_chunks.astype(jnp.bfloat16))
 
     @jax.jit
     def _assign(obs_in, cc):
         obs_in = obs_in.astype(jnp.uint8)
         b = obs_in.shape[0]
         if packed2:
-            codes = unpack_bit2(obs_in, length)
-            onehot = (
-                codes[:, :, None] == jnp.arange(4, dtype=jnp.int32)[None, None, :]
-            ).astype(jnp.int8)
-            obs16 = onehot.reshape(b, length * 4)
+            obs_vals = unpack_bit2(obs_in, length)
             obs_masks = None
         else:
             if packed_masks:
                 obs_masks = unpack_nib4(obs_in, length)
             else:
                 obs_masks = byte_to_mask(obs_in)  # [B, L] int32 (no gathers)
-            onehot = (
-                obs_masks[:, :, None]
-                == jnp.arange(16, dtype=jnp.int32)[None, None, :]
-            ).astype(jnp.int8)
-            obs16 = onehot.reshape(b, length * 16)
+            obs_vals = obs_masks
+        classes = jnp.arange(onehot_width, dtype=jnp.int32)
+        obs1h = (obs_vals[:, :, None] == classes[None, None, :]).astype(
+            jnp.bfloat16
+        ).reshape(b, length * onehot_width)
 
         # f32 combined-key reduction: key = count * kc + col encodes
-        # (count, first-index) so ONE min yields both (exact: counts <= 255,
-        # kc <= 2^16 -> keys < 2^24, integers exact in f32).  Saves an HBM
-        # pass over the [B, kc] counts matrix vs separate min+argmin.
-        # exactness bound: 255 * kc + kc - 1 must stay < 2^24
-        use_combined = length <= 255 and kc <= (1 << 15)
+        # (count, first-index) so ONE min yields both (exact: counts are
+        # clamped to 255 and kc <= 2^15, so keys < 2^24).
         kcf = float(kc)
+        col = jnp.arange(kc, dtype=jnp.float32)
 
         def scan_body(carry, xs):
             chunk_i, chunk_compat = xs
-            if use_combined:
-                counts_f = jax.lax.dot_general(
-                    obs16,
-                    chunk_compat,
-                    dimension_numbers=(((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )  # exact integers (counts <= L <= 255)
-                col = jnp.arange(kc, dtype=jnp.float32)
-                gcol = jnp.arange(kc, dtype=jnp.int32) + chunk_i * kc
-                key = counts_f * kcf + col[None, :]
-                key = jnp.where(gcol[None, :] < k, key, float(MAX_COUNT) * kcf)
-                m1 = jnp.min(key, axis=1)
-                cb = jnp.minimum((m1 / kcf).astype(jnp.int32), MAX_COUNT)
-                ci_local = (m1 - jnp.floor(m1 / kcf) * kcf).astype(jnp.int32)
-                masked = jnp.where(
-                    col[None, :] == ci_local[:, None].astype(jnp.float32),
-                    float(MAX_COUNT) * kcf,
-                    key,
-                )
-                m2 = jnp.min(masked, axis=1)
-                cn = jnp.minimum((m2 / kcf).astype(jnp.int32), MAX_COUNT)
-                ci = ci_local + chunk_i * kc
-            else:
-                counts = jax.lax.dot_general(
-                    obs16,
-                    chunk_compat,
-                    dimension_numbers=(((1,), (0,)), ((), ())),
-                    preferred_element_type=acc,
-                )
-                counts = jnp.minimum(counts, MAX_COUNT).astype(jnp.int32)
-                # mask out padding columns (global index >= k)
-                col = jnp.arange(kc, dtype=jnp.int32) + chunk_i * kc
-                counts = jnp.where(col[None, :] < k, counts, MAX_COUNT)
-                cb, ci, cn = _chunk_top2(counts)
-                ci = ci + chunk_i * kc
+            counts = jax.lax.dot_general(
+                obs1h,
+                chunk_compat,
+                dimension_numbers=(((1,), (0,)), ((), ())),
+                preferred_element_type=jnp.float32,
+            )  # exact integers <= L
+            gcol = jnp.arange(kc, dtype=jnp.int32) + chunk_i * kc
+            key = jnp.minimum(counts, float(MAX_COUNT)) * kcf + col[None, :]
+            key = jnp.where(gcol[None, :] < k, key, float(MAX_COUNT) * kcf)
+            m1 = jnp.min(key, axis=1)
+            cb = jnp.minimum((m1 / kcf).astype(jnp.int32), MAX_COUNT)
+            ci_local = (m1 - jnp.floor(m1 / kcf) * kcf).astype(jnp.int32)
+            masked = jnp.where(
+                col[None, :] == ci_local[:, None].astype(jnp.float32),
+                float(MAX_COUNT) * kcf,
+                key,
+            )
+            m2 = jnp.min(masked, axis=1)
+            cn = jnp.minimum((m2 / kcf).astype(jnp.int32), MAX_COUNT)
+            ci = ci_local + chunk_i * kc
             return merge_top2(carry, (cb, ci, cn)), None
 
         init = (
@@ -377,8 +348,4 @@ def make_assign_fn(
     def assign(obs_bytes):
         return _assign(obs_bytes, compat_chunks_dev)
 
-    # device-only instrumentation hooks (bench.py MFU accounting)
-    assign.jitted = _assign
-    assign.compat_dev = compat_chunks_dev
-    assign.macs_per_row = k_pad * length * onehot_width
     return assign

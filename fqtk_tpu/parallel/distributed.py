@@ -9,8 +9,7 @@ The reference is single-process; its natural multi-host extension (SURVEY.md
   instead).
 - Per-sample template counts are associative integer sums, so the global
   ``DemuxMetric`` values are computed exactly by summing per-host counts —
-  a single ``psum`` over the hosts' device mesh (ICI within a slice, DCN
-  across slices) — and writing ``demux-metrics.txt`` once on process 0.
+  a single ``psum`` over the hosts' device mesh — and writing ``demux-metrics.txt`` once on process 0.
 - Per-sample FASTQ outputs are written per host under ``shard-{pid}/``; a
   global view is the in-order concatenation of shards, mirroring what the
   reference produces after lane concatenation.  (Byte-level equality with a
@@ -66,7 +65,7 @@ def merge_host_counts(local_counts: np.ndarray) -> np.ndarray:
     for per-process host data: each process contributes its local vector
     exactly once (no replication-consistency assumption; each host's counts
     ARE different), the gather rides the runtime's cross-host collective
-    channel (DCN), and the sum over the ``[n_process, ...]`` result is an
+    channel, and the sum over the ``[n_process, ...]`` result is an
     exact integer reduction, so merged metrics equal a single-process run's.
 
     Exercised by a real 2-process ``jax.distributed`` run in

@@ -1,7 +1,7 @@
 """Multi-device demux: data-parallel reads x K-sharded whitelists.
 
 The reference is single-process multi-threaded (SURVEY.md §2c); its only
-parallelism is a 3-stage host pipeline.  The TPU-native scale-out replaces it
+parallelism is a 3-stage host pipeline.  The device scale-out replaces it
 with a 2-D device mesh:
 
 - ``batch`` axis: FASTQ record batches stream data-parallel — each device
@@ -14,22 +14,21 @@ with a 2-D device mesh:
   used for K-chunking (:func:`fqtk_tpu.ops.matcher.merge_top2`) — ascending
   shard order preserves the reference's first-index tie-break.
 
-The per-device (per-shard) top-2 runs the SAME int8/bit2 column-merge Pallas
-kernel as the single-chip production path (``ops/pallas_matcher.py``) when
-the backend is a real TPU — multi-chip big-K gets single-chip per-device
-throughput, with compat shards built per device slice so the full
-``[L*16, K]`` table (~189 MB at 737K barcodes) never materializes.  On CPU
-(tests, ``dryrun_multichip``) or non-TPU backends the per-shard top-2 falls
-back to the chunked XLA contraction, which lowers everywhere; both share the
-cross-shard merge and gates, and both are validated against the NumPy spec.
+The per-device (per-shard) top-2 runs the same fused Triton kernel as the
+single-device path (``ops/pallas_matcher.py``) when the caller asks for it
+(``use_kernel``; the demux driver does on a GPU backend), with compat shards
+built per device slice so the full table never materializes host-side.
+Otherwise it runs the chunked XLA contraction, which lowers everywhere; both
+share the cross-shard merge and gates, and both are validated against the
+NumPy spec.  Every device reaches every other at the same rate (NVLink, all
+to all), so the mesh shape follows the algorithm alone.
 
 Per-sample template counts are computed on device (one-hot sum) and reduced
 with ``psum`` over the batch axis, reproducing the reference's single global
 ``DemuxMetric`` counts (associative integer sums, SURVEY.md §5).
 
 Multi-host: the same program runs under ``jax.distributed`` with each host
-feeding its input shard; counts ride the same ``psum`` (ICI within a slice,
-DCN across hosts).
+feeding its input shard; counts ride the same ``psum``.
 """
 
 from __future__ import annotations
@@ -93,9 +92,7 @@ def make_sharded_assign_fn(
     packed2: bool = False,
     compact_output: bool = False,
     with_counts: bool = True,
-    use_pallas: Optional[bool] = None,
-    tile_b: Optional[int] = None,
-    tile_k: Optional[int] = None,
+    use_kernel: bool = False,
     interpret: bool = False,
 ):
     """Build the sharded demux step: ``obs[B, L] -> (assigned[B], counts[K+1])``.
@@ -116,9 +113,10 @@ def make_sharded_assign_fn(
     ``compact_output``: uint8 ``assigned`` when ``K < 255``.
     ``with_counts=False`` returns only ``assigned`` (the product pipeline
     counts host-side where skip/length flags are applied).
-    ``use_pallas``: force the per-shard kernel choice; default auto —
-    the fused Pallas kernel on a TPU backend (or under ``interpret=True``),
-    the chunked XLA contraction otherwise.
+    ``use_kernel``: run the fused Triton top-2 kernel per shard (packed
+    input only; compiles for a GPU backend) instead of the chunked XLA
+    contraction; ``interpret=True`` runs it in the Pallas interpreter
+    (tests on the CPU).
 
     The returned callable accepts ANY leading dim: it pads the batch to the
     mesh/tile multiple with 'A' rows and slices the pads back off (count
@@ -128,20 +126,10 @@ def make_sharded_assign_fn(
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    def shard_map(f, *, mesh, in_specs, out_specs):
-        try:  # jax >= 0.8
-            return jax.shard_map(
-                f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False
-            )
-        except (AttributeError, TypeError):  # pragma: no cover
-            from jax.experimental.shard_map import shard_map as _sm
-
-            return _sm(
-                f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_rep=False
-            )
-
     if packed_masks and packed2:
         raise ValueError("packed_masks and packed2 are mutually exclusive")
+    if use_kernel and not (packed_masks or packed2):
+        raise ValueError("the fused kernel takes packed (bit2/nib4) input")
     k = expected.count
     length = expected.length
     n_k_shards = mesh.shape["whitelist"]
@@ -156,11 +144,6 @@ def make_sharded_assign_fn(
     # shard AND across the ordered merge) means a pad can only surface when
     # no real column exists anywhere — impossible with K >= 1.
     k_per_shard = -(-k // n_k_shards)
-
-    if use_pallas is None:
-        use_pallas = length <= 255 and (
-            interpret or jax.default_backend() == "tpu"
-        )
 
     from ..ops.device_encoding import (
         byte_is_nocall,
@@ -177,32 +160,21 @@ def make_sharded_assign_fn(
             return unpack_nib4(obs_in, length)
         return byte_to_mask(obs_in)
 
-    if use_pallas:
+    if use_kernel:
         from ..ops.pallas_matcher import (
             compat_for_plan,
             make_kernel_runner,
             plan_local_kernel,
         )
 
-        # single measured-best tiling (512, 2048); a (256, 4096) big-shard
-        # variant did not replicate its one-window +10% under interleaved
-        # A/B (DESIGN.md r4), so the simpler uniform tiling is kept
-        if tile_b is None or tile_k is None:
-            tile_b, tile_k = tile_b or 512, tile_k or 2048
         # one plan for every shard (shard_map runs a single program)
         plan = plan_local_kernel(
-            k_per_shard,
-            length,
-            tile_b=tile_b,
-            tile_k=tile_k,
-            interpret=interpret,
-            packed2=packed2,
-            mxu_dtype="int8",
+            k_per_shard, length, packed2, interpret=interpret
         )
         run_kernel = make_kernel_runner(plan)
         in_dtype = jnp.int8
         # per-shard compat slices: peak host memory is one shard's table
-        # (~K/n of the full one), not the eager [L*16, K] monolith
+        # (~K/n of the full one), not the eager [L*W, K] monolith
         shard_tables = []
         for s in range(n_k_shards):
             masks_s = expected.masks[s * k_per_shard:(s + 1) * k_per_shard]
@@ -212,8 +184,7 @@ def make_sharded_assign_fn(
         batch_multiple = n_batch * plan.tile_b
 
         def local_top2(obs_bytes, compat_local):
-            vals_t = _obs_vals(obs_bytes).T  # [L, b_local]
-            best, bidx, nxt = run_kernel(vals_t, compat_local)
+            best, bidx, nxt = run_kernel(obs_bytes, compat_local)
             shard_off = jax.lax.axis_index("whitelist") * k_per_shard
             return best, bidx + shard_off, nxt
 
@@ -264,6 +235,7 @@ def make_sharded_assign_fn(
 
             def body(carry, xs):
                 chunk_i, chunk_compat = xs
+                # int8 0/1 operands, int32 accumulation: exact counts
                 counts = jax.lax.dot_general(
                     obs16,
                     chunk_compat,
@@ -317,7 +289,7 @@ def make_sharded_assign_fn(
 
         if k == 1:
             # no real runner-up exists: the spec says MAX_COUNT (u8 init of
-            # the reference).  The Pallas shard path reports L from its
+            # the reference).  The kernel's shard path reports L from its
             # unmasked pad columns; the XLA path masks them — normalize both.
             nxt = jnp.full_like(nxt, MAX_COUNT)
 
@@ -357,17 +329,19 @@ def make_sharded_assign_fn(
 
     P_obs = P("batch", None)
     P_compat = P(None, "whitelist")
-    sharded = shard_map(
+    sharded = jax.shard_map(
         step,
         mesh=mesh,
         in_specs=(P_obs, P_compat),
         out_specs=(P("batch"), P(None)) if with_counts else P("batch"),
+        check_vma=False,
     )
     jitted = jax.jit(sharded)
 
     compat_dev = jax.device_put(
         compat_host.astype(in_dtype), NamedSharding(mesh, P_compat)
     )
+    obs_sharding = NamedSharding(mesh, P_obs)
 
     if packed2:
         pad_byte = 0x00  # four 'A' codes
@@ -384,7 +358,10 @@ def make_sharded_assign_fn(
             obs = np.ascontiguousarray(
                 np.pad(obs, ((0, pad), (0, 0)), constant_values=pad_byte)
             )
-        out = jitted(jnp.asarray(obs, dtype=jnp.uint8), compat_dev)
+        # placed straight onto the batch shards (never staged whole on one
+        # device before the jit reshards it)
+        obs_dev = jax.device_put(obs.astype(np.uint8, copy=False), obs_sharding)
+        out = jitted(obs_dev, compat_dev)
         if not with_counts:
             return out[:b] if pad else out
         assigned, counts = out
@@ -400,11 +377,6 @@ def make_sharded_assign_fn(
 
     assign.mesh = mesh
     assign.n_k_shards = n_k_shards
-    assign.use_pallas = use_pallas
+    assign.use_kernel = use_kernel
     assign.batch_multiple = batch_multiple
-    # device-only instrumentation hooks (bench/A-B harnesses): the raw
-    # jitted sharded step + resident compat, and per-row MAC count
-    assign.jitted = jitted
-    assign.compat_dev = compat_dev
-    assign.macs_per_row = compat_host.shape[0] * compat_host.shape[1]
     return assign

@@ -293,10 +293,11 @@ def run_subsample(cfg: SubsampleConfig, use_native: Optional[bool] = None) -> Su
     if use_native is not False:
         from ..io import native as native_io
 
-        if native_io.available():
-            return _run_subsample_native(cfg, rng, seed)
-        if use_native:  # explicitly requested but unavailable
-            raise SubsampleError("native library unavailable")
+        try:
+            native_io.get_lib()
+        except native_io.NativeLibraryError as e:
+            raise SubsampleError(str(e)) from None
+        return _run_subsample_native(cfg, rng, seed)
 
     sources = [_RawFastqReader(open_reader(p), str(p)) for p in cfg.inputs]
     writers = [

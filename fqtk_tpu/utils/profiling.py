@@ -1,6 +1,6 @@
 """Per-stage pipeline timing + optional device traces (SURVEY.md §5).
 
-The reference has no tracing; the TPU build exposes:
+The reference has no tracing; this build exposes:
 
 - :class:`StageTimers` — cumulative wall-clock per pipeline stage (parse,
   assign dispatch, result fetch, route, finish), logged at the end of a run

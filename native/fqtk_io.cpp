@@ -1,6 +1,6 @@
 // fqtk-tpu native host I/O engine.
 //
-// TPU-native replacement for the reference's host-side crates (SURVEY.md §2b):
+// Native replacement for the reference's host-side crates (SURVEY.md §2b):
 //   - seq_io FASTQ parsing            -> chunked memchr scanner over inflate
 //   - fgoxide gzip readers            -> zlib multi-member inflate
 //   - pooled-writer + bgzf            -> BGZF writer pool (worker threads,
@@ -12,7 +12,7 @@
 // per-input parse threads free-run over a 4-slot window ring, the last
 // thread to finish a window runs the skip/sync/pack gates inline, and a
 // dedicated route thread rewrites headers and streams records to per-sample
-// BGZF writers.  Python's only job per window is the TPU matcher call:
+// BGZF writers.  Python's only job per window is the device matcher call:
 //   fqtk_demux_pipe_acquire(): block until a packed [B, L/2] barcode matrix
 //                              is ready (zero-copy view of engine memory)
 //   fqtk_demux_pipe_submit():  hand device assignments to the route thread
@@ -48,7 +48,7 @@
 #include <unistd.h>
 #endif
 
-#if __has_include(<libdeflate.h>)
+#if __has_include(<libdeflate.h>) && !defined(FQTK_NO_LIBDEFLATE)
 #include <libdeflate.h>
 #define FQTK_HAVE_LIBDEFLATE 1
 #endif
@@ -496,7 +496,9 @@ class InputStream {
 
   // Compressed/raw byte source: the constructor's sniffed header bytes
   // replay first (never seek — pipes can't), then the file continues.
-  size_t raw_read(uint8_t* dst, size_t len) {
+  // Kept out of line: inlined into a caller with a stack InputStream, GCC
+  // 13's -Warray-bounds mistakes `dst` for a pointer into that object.
+  __attribute__((noinline)) size_t raw_read(uint8_t* dst, size_t len) {
     size_t total = 0;
     if (pushback_pos_ < pushback_len_) {
       size_t take = std::min(len, pushback_len_ - pushback_pos_);
@@ -851,7 +853,7 @@ class CompressorPool {
   // stage has finished (parse threads at EOF) help drain the compress
   // queue instead of idling — the end-of-run drain otherwise runs on
   // n_compressor threads while the rest of the host sits parked
-  // (measured ~0.8-1.0 core-s of idle per run; see DESIGN.md r4).
+  // (measured ~0.8-1.0 core-s of idle per run).
   void assist(const std::atomic<bool>& quit) {
     for (;;) {
       CompressJob job;
@@ -1329,7 +1331,7 @@ class DemuxEngine {
                                              std::max(8, n_threads * 50));
     level_ = compression_level;
     route_threads_ = std::max(1, std::min(4, n_threads / 2));
-    // Stall-assist (see DESIGN.md r4): stalled pipeline threads and
+    // Stall-assist: stalled pipeline threads and
     // queue-full producers run compress jobs instead of parking.  Default
     // OFF: interleaved A/B on the 4-core bench host measured it a wash-to-
     // loss (dual-index median 1.33M vs 1.45M off) — the pool already has
@@ -1972,7 +1974,7 @@ class DemuxEngine {
     for (size_t i = 0; i < parse_states_.size(); i++)
       parse_threads_.emplace_back([this, i] {
 #if defined(__linux__)
-        // Experimental (A/B'd; see DESIGN.md r5): pin parse thread i to
+        // Experimental (A/B'd): pin parse thread i to
         // core i%ncores so the per-input scan streams keep cache/core
         // affinity across windows instead of migrating under load.
         if (getenv("FQTK_PIN_PARSE") != nullptr) {
@@ -1995,7 +1997,7 @@ class DemuxEngine {
   // it joins the compressor pool until the run finishes: the end-of-run
   // drain + writer-close flush otherwise runs on the compressor threads
   // alone while parse cores idle (a fixed ~0.8-1.0 core-s bubble per run
-  // on this 4-core host; DESIGN.md r4).
+  // on a 4-core host).
   void pipe_parse_drain_assist() {
     if (const char* env = getenv("FQTK_DRAIN_ASSIST"))
       if (env[0] == '0') return;  // A/B kill switch
@@ -2112,7 +2114,7 @@ class DemuxEngine {
 
   // Fused host-matcher mode: when the placement policy picks a HOST
   // matcher, the Python driver's per-window acquire -> ctypes assign ->
-  // submit relay is pure overhead (~245 GIL round-trips per 4M-read run).
+  // submit round trip is pure overhead (one GIL round trip per window).
   // Registering the matcher here moves assignment into a dedicated engine
   // thread between gate_pack and route: gated windows flow through
   // assign_q_ in window order and Python only polls progress counters.
@@ -2766,7 +2768,7 @@ class SubsampleEngine {
       // lockstep-skew accounting: core-seconds workers spent finished but
       // waiting at the per-chunk barrier for the slowest input (mostly
       // soaked by the nice+5 compressor pool, but reported so the residual
-      // ceiling gap stays attributable — DESIGN.md round-5 subsample)
+      // ceiling gap stays attributable)
       uint64_t max_end = 0;
       for (auto& s : st) max_end = std::max(max_end, s.end_wall);
       for (auto& s : st) skew_ns_ += max_end - s.end_wall;
@@ -2880,8 +2882,8 @@ class SubsampleEngine {
 // Big-K pigeonhole matcher (host fast path for huge whitelists).
 //
 // For a whitelist of K pure-ACGT barcodes (e.g. 737K single-cell barcodes),
-// the brute-force [B, K] mismatch matrix is O(B*K*L) — wasteful even on an
-// MXU.  Pigeonhole: any barcode within max_mm + max(delta,1) - 1 mismatches
+// the brute-force [B, K] mismatch matrix is O(B*K*L) — wasteful even on a
+// matrix unit.  Pigeonhole: any barcode within max_mm + max(delta,1) - 1 mismatches
 // of a read must match at least one of max_mm + max(delta,1) disjoint parts
 // EXACTLY, so candidates come from part-indexed exact-match tables (CSR over
 // 2-bit-packed part values) and only candidates get a full mismatch count.
@@ -3721,8 +3723,8 @@ class BigKMatcher {
 // ---------------------------------------------------------------------------
 // Small-K host matcher: brute-force scan over nibble-mask-packed barcodes.
 //
-// TPU-policy context: when the whitelist is small, the per-batch device
-// round-trip (dispatch latency + PCIe/relay transfer) can exceed the entire
+// Placement context: when the whitelist is small, the per-batch device
+// round-trip (dispatch latency + host<->device transfer) can exceed the entire
 // brute-force host cost (K*L nibble-ops per read).  The demux auto policy
 // (runtime/demux.py) routes such configurations here instead of stalling the
 // pipeline on the device leg; the device paths remain the production route
@@ -4527,6 +4529,16 @@ FQTK_API int64_t fqtk_inflate_bench(const char* path, double* cpu_s,
       *kind = 0;
   }
   return total;
+}
+
+// Deflate library the build linked: 1 = libdeflate (BGZF blocks inflate
+// whole, faster compression), 0 = zlib only.
+FQTK_API int fqtk_deflate_backend(void) {
+#ifdef FQTK_HAVE_LIBDEFLATE
+  return 1;
+#else
+  return 0;
+#endif
 }
 
 FQTK_API int fqtk_simd_level(void) {

@@ -1,4 +1,4 @@
-"""Host-core scaling curve (VERDICT r4 item 2): does e2e demux throughput
+"""Host-core scaling curve: does e2e demux throughput
 track available host cores?
 
 The repo's north-star accounting says the single-chip e2e number is

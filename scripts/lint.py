@@ -17,7 +17,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-TARGETS = ["fqtk_tpu", "tests", "scripts", "bench.py", "__graft_entry__.py"]
+TARGETS = ["fqtk_tpu", "tests", "scripts", "bench.py", "chip_smoke.py", "__graft_entry__.py"]
 
 
 def _py_files():

@@ -1,4 +1,4 @@
-"""Wall/CPU accounting for one e2e demux config (VERDICT r3 item 3).
+"""Wall/CPU accounting for one e2e demux config.
 
 Reproduces a bench config (default: the variable-length PE one sitting at
 0.773 of its host ceiling) and decomposes the gap:

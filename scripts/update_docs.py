@@ -10,74 +10,12 @@ Usage:
     python scripts/update_docs.py --check   # exit 1 on drift (CI mode)
 """
 
-import json
 import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 BEGIN = "<!-- BEGIN GENERATED CLI HELP (scripts/update_docs.py) -->"
 END = "<!-- END GENERATED CLI HELP -->"
-PERF_BEGIN = "<!-- BEGIN GENERATED PERF TABLE (scripts/update_docs.py) -->"
-PERF_END = "<!-- END GENERATED PERF TABLE -->"
-
-#: (config name in bench.py output, README row label)
-_PERF_ROWS = [
-    ("dual_index_PE_96samples_8B9B_mm1_d2", "dual-index PE demux, 96 samples, mm=1"),
-    ("single_end_inline_17B+T_16samples_mm0", "single-end inline index demux (17B+T, 16 samples)"),
-    ("iupac_N_expected_barcodes_17B+T_16samples", "IUPAC/N expected-barcode demux"),
-    ("variable_length_plus_structures_PE_96samples", "variable-length `+` structures, PE, 96 samples"),
-    ("mid_K_8192_16bp_mm1_d2", "mid-K matcher, 8,192 barcodes (call-level)"),
-    ("single_cell_737K_whitelist_16B", "737K-barcode single-cell matcher (uniform draws)"),
-    ("single_cell_737K_whitelist_16B/clustered", "same, clustered single-cell distribution"),
-    ("subsample_PE_fraction0.3", "subsample, paired-end"),
-]
-
-
-def _fmt_rate(v: float) -> str:
-    return f"{v / 1e6:.2f}M reads/s"
-
-
-def _fmt_vs(v) -> str:
-    if v is None:
-        return "—"
-    if v >= 100:
-        return f"{v:,.0f}x"
-    return f"{v:.2f}x"
-
-
-def render_perf() -> str:
-    """Render the performance table from the latest recorded bench run.
-
-    The table is regenerated mechanically from ``BENCH_LOCAL.json`` (written
-    by every ``bench.py`` run) so README claims can never drift above the
-    recorded window (VERDICT r4 item 4).  The drift gate in ``check.sh``
-    fails when the table and the recording disagree.
-    """
-    data = json.loads((REPO / "BENCH_LOCAL.json").read_text())
-    by_name = {c["name"]: c for c in data.get("configs", [])}
-    lines = [
-        "| workload | fqtk-tpu (latest recorded run) | vs reference architecture | of assign-free host ceiling |",
-        "|---|---|---|---|",
-    ]
-    for name, label in _PERF_ROWS:
-        clustered = name.endswith("/clustered")
-        cfg = by_name.get(name.split("/")[0])
-        if cfg is None:
-            continue
-        if clustered:
-            rate = cfg.get("clustered_8k_cells_reads_per_sec")
-            vs = None
-        else:
-            rate = cfg.get("reads_per_sec")
-            vs = cfg.get("vs_config_baseline")
-        if rate is None:
-            continue
-        ceiling = cfg.get("host_speed_of_light", {}).get("frac_of_ceiling")
-        frac = f"{ceiling:.2f}" if ceiling is not None else "—"
-        lines.append(
-            f"| {label} | {_fmt_rate(rate)} | {_fmt_vs(vs)} | {frac} |"
-        )
-    return "\n".join(lines)
 
 
 def render_help() -> str:
@@ -109,15 +47,6 @@ def main() -> int:
     head, rest = text.split(BEGIN, 1)
     _, tail = rest.split(END, 1)
     new = f"{head}{BEGIN}\n\n{render_help()}\n\n{END}{tail}"
-    if PERF_BEGIN not in new or PERF_END not in new:
-        print(
-            f"README is missing the {PERF_BEGIN} / {PERF_END} markers",
-            file=sys.stderr,
-        )
-        return 1
-    phead, prest = new.split(PERF_BEGIN, 1)
-    _, ptail = prest.split(PERF_END, 1)
-    new = f"{phead}{PERF_BEGIN}\n\n{render_perf()}\n\n{PERF_END}{ptail}"
     if new == text:
         print("README CLI help is up to date")
         return 0

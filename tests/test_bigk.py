@@ -126,7 +126,7 @@ def test_pigeonhole_selected_in_driver_matches_numpy_engine(tmp_path, monkeypatc
     from fqtk_tpu.runtime import demux as demux_mod
     from fqtk_tpu.runtime.demux import DemuxConfig, run_demux
 
-    monkeypatch.setattr(demux_mod, "PALLAS_K_THRESHOLD", 16)
+    monkeypatch.setattr(demux_mod, "BIG_K_THRESHOLD", 16)
     rng = np.random.default_rng(3)
     barcodes = _whitelist(rng, 48, 12)
     meta = tmp_path / "metadata.tsv"
@@ -157,7 +157,7 @@ def test_pigeonhole_selected_in_driver_matches_numpy_engine(tmp_path, monkeypatc
         )
 
     res_n = run_demux(cfg("out_native", "native"))
-    monkeypatch.setattr(demux_mod, "PALLAS_K_THRESHOLD", 1 << 30)
+    monkeypatch.setattr(demux_mod, "BIG_K_THRESHOLD", 1 << 30)
     res_p = run_demux(cfg("out_numpy", "numpy"))
     assert res_n.total_templates == res_p.total_templates == 150
     for p in sorted((tmp_path / "out_numpy").glob("*.fq.gz")):

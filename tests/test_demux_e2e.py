@@ -300,7 +300,7 @@ def test_demux_dual_indexed_paired_end_reads(tmp_path, engine):
 
 
 def test_demux_native_without_jax_falls_back_to_numpy_spec(tmp_path, monkeypatch):
-    """jax is the 'tpu' extra: on a jax-less host the native engine must
+    """jax is an optional extra: on a jax-less host the native engine must
     still demux correctly (assignment via the NumPy spec) when no host
     matcher qualifies (FQTK_HOST_MATCHER_MAX_K=0 forces the device branch)."""
     import sys
@@ -500,21 +500,42 @@ def test_gzip_inputs(tmp_path, engine):
     )
 
 
-def test_demux_pallas_engine(tmp_path):
-    """The Pallas fused kernel as the matcher engine (interpret mode on CPU),
-    compared against the numpy engine byte-for-byte."""
+def test_demux_pallas_engine(tmp_path, monkeypatch):
+    """The fused Triton kernel as the native engine's device matcher (the
+    GPU choice, forced here and run in the Pallas interpreter), compared
+    against the numpy engine byte-for-byte."""
+    from fqtk_tpu.ops import pallas_matcher
+    from fqtk_tpu.runtime import demux as dmod
+
+    built = []
+
+    def interpreted(*args, **kw):
+        built.append(kw)
+        return make_kernel(*args, interpret=True, **kw)
+
+    make_kernel = pallas_matcher.make_pallas_assign_fn
+    monkeypatch.setattr(dmod, "_fused_kernel_ok", lambda expected: True)
+    monkeypatch.setattr(pallas_matcher, "make_pallas_assign_fn", interpreted)
     s1 = "AAAAAAAAGATTACAGA"
     sample_metadata = metadata_file(
         tmp_path, [s1, "CCCCCCCCGATTACAGA", "GGGGGGGGGATTACAGA", "GGGGGGTTGATTACAGA"]
     )
-    reads = [s1 + "A" * 100, "CCCCCCCCGATTACAGA" + "G" * 100, "TTTTTTTTTTTTTTTTT" + "C" * 100]
+    reads = [s1 + "A" * 100, "CCCCCCCCGATTACAGA" + "G" * 100, "TTTTTTTTTTTTTTTTT" + "C" * 100,
+             "NCCCCCCCGATTACAGA" + "T" * 100]
     inputs = [fastq_file(tmp_path, "ex", "ex", reads)]
     out_p = tmp_path / "out_pallas"
     out_n = tmp_path / "out_numpy"
-    for out, engine in [(out_p, "pallas"), (out_n, "numpy")]:
-        run_demux(
-            _cfg(tmp_path, inputs, ["17B100T"], sample_metadata, out, engine, batch_size=64)
+    for out, engine, kw in [
+        (out_p, "native", dict(matcher="device", devices=1)),
+        (out_n, "numpy", {}),
+    ]:
+        res = run_demux(
+            _cfg(tmp_path, inputs, ["17B100T"], sample_metadata, out, engine,
+                 batch_size=64, **kw)
         )
+        if engine == "native":
+            assert res.matcher == "device:triton-kernel"
+    assert built and built[0]["packed2"]
     for f in sorted(out_p.glob("*.fq.gz")):
         a = gzip.open(f).read()
         b = gzip.open(out_n / f.name).read()
@@ -878,7 +899,7 @@ def test_out_of_sync_header_rendering_matches_bytes_repr(tmp_path, engine):
 
 
 def test_device_failure_mid_run_tears_down_cleanly(tmp_path, monkeypatch):
-    """If the device matcher raises mid-stream (e.g. a TPU backend error),
+    """If the device matcher raises mid-stream (e.g. a device runtime error),
     the exception must propagate promptly and the engine teardown must join
     its parse/route threads without deadlock."""
     from fqtk_tpu.runtime import demux as dmod

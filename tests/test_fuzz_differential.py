@@ -73,7 +73,7 @@ def _random_scenario(rng: random.Random, tmp_path, scenario_id: int):
     read_alpha = BASES + "N" + "acgtn" + "RY" + "X-"
     # clustered scenario class: duplicate-heavy reads drawn from a small
     # pool (the single-cell shape that engages the window-dedup front-end,
-    # runtime/demux.py _wrap_window_dedup) — r5 first-class per VERDICT r4
+    # runtime/demux.py _wrap_window_dedup)
     clustered = rng.random() < 0.25
     for i in range(n_inputs):
         ml = min_len(structures[i])

@@ -92,10 +92,10 @@ def test_batch_sharded_mesh_matches_single_device(tmp_path):
 def test_whitelist_sharded_mesh_matches_single_device(tmp_path, monkeypatch):
     """Force the big-K policy at a tiny K so the K-sharded path (cross-shard
     top-2 merge) runs through the product driver."""
-    monkeypatch.setattr(demux_mod, "PALLAS_K_THRESHOLD", 8)
+    monkeypatch.setattr(demux_mod, "BIG_K_THRESHOLD", 8)
     inputs, meta = _write_inputs(tmp_path, seed=11)
     out8, res8 = _run(tmp_path, inputs, meta, "out_ksharded", devices=8)
-    monkeypatch.setattr(demux_mod, "PALLAS_K_THRESHOLD", 1 << 30)
+    monkeypatch.setattr(demux_mod, "BIG_K_THRESHOLD", 1 << 30)
     out1, res1 = _run(tmp_path, inputs, meta, "out_single", devices=1)
     assert res1.total_templates == res8.total_templates == 203
     _compare_outputs(out8, out1)

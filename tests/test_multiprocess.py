@@ -2,7 +2,7 @@
 
 Each test launches two fresh interpreters (CPU backend, 2 fake devices
 each) that rendezvous through a jax.distributed coordinator, exactly as two
-TPU hosts would over DCN.  This exercises ``merge_host_counts`` and
+hosts would over the network.  This exercises ``merge_host_counts`` and
 ``run_demux_multihost`` in genuinely multi-process form — the
 ``process_count() == 1`` identity short-circuit never runs here.
 """

@@ -5,6 +5,8 @@ import pytest
 
 from fqtk_tpu.ops.matcher import ExpectedSet, assign_batch_np
 
+from .util import pack_bit2, pack_nib4
+
 jax = pytest.importorskip("jax")
 
 
@@ -77,36 +79,21 @@ def test_first_index_tie_break_across_shards():
     np.testing.assert_array_equal(np.asarray(assigned), np.zeros(8, dtype=np.int32))
 
 
-def _pack_bit2(obs):
-    """[B, L] pure-ACGT ASCII -> [B, ceil(L/4)] 2-bit codes (engine layout)."""
-    code = np.zeros(256, dtype=np.uint8)
-    for c, ch in zip((0, 1, 2, 3), b"ACGT"):
-        code[ch] = c
-    b, length = obs.shape
-    w = -(-length // 4) * 4
-    padded = np.zeros((b, w), dtype=np.uint8)
-    padded[:, :length] = code[obs]
-    return (
-        padded[:, 0::4] | (padded[:, 1::4] << 2) | (padded[:, 2::4] << 4)
-        | (padded[:, 3::4] << 6)
-    ).astype(np.uint8)
-
-
 @pytest.mark.parametrize("n_batch,n_k", [(4, 2), (2, 4), (1, 8)])
 def test_sharded_pallas_kernel_matches_numpy(n_batch, n_k):
-    """The per-shard Pallas column-merge kernel (interpret mode) under
-    shard_map must agree with the NumPy spec, including the cross-shard
-    ordered merge and the batch padding/count-adjustment in the wrapper."""
+    """The per-shard fused kernel (interpreter) under shard_map over nib4
+    input must agree with the NumPy spec, including the cross-shard ordered
+    merge, the no-call gate and the batch padding/count adjustment."""
     from fqtk_tpu.parallel.mesh import make_demux_mesh, make_sharded_assign_fn
 
     rng = np.random.default_rng(7)
     es, obs = _random_case(rng, k=23, length=9, b=50)  # odd B: forces padding
     mesh = make_demux_mesh(n_batch=n_batch, n_whitelist=n_k)
     fn = make_sharded_assign_fn(
-        es, 1, 2, mesh, use_pallas=True, interpret=True, tile_b=8, tile_k=128
+        es, 1, 2, mesh, packed_masks=True, use_kernel=True, interpret=True
     )
-    assert fn.use_pallas
-    assigned, counts = fn(obs)
+    assert fn.use_kernel
+    assigned, counts = fn(pack_nib4(obs))
     np_idx, _, _ = assign_batch_np(obs, es, 1, 2)
     expect = np.where(np_idx < 0, es.count, np_idx)
     np.testing.assert_array_equal(np.asarray(assigned), expect)
@@ -116,7 +103,7 @@ def test_sharded_pallas_kernel_matches_numpy(n_batch, n_k):
 
 
 def test_sharded_pallas_packed2_matches_numpy():
-    """bit2 transfers through the K-sharded Pallas path (the production
+    """bit2 transfers through the K-sharded kernel path (the production
     multi-device big-K configuration, at reduced scale)."""
     from fqtk_tpu.parallel.mesh import make_demux_mesh, make_sharded_assign_fn
 
@@ -136,10 +123,9 @@ def test_sharded_pallas_packed2_matches_numpy():
     mesh = make_demux_mesh(n_batch=2, n_whitelist=4)
     fn = make_sharded_assign_fn(
         es, 2, 1, mesh, packed2=True, compact_output=True,
-        with_counts=False, use_pallas=True, interpret=True,
-        tile_b=8, tile_k=128,
+        with_counts=False, use_kernel=True, interpret=True,
     )
-    assigned = np.asarray(fn(_pack_bit2(obs)))
+    assigned = np.asarray(fn(pack_bit2(obs)))
     assert assigned.dtype == np.uint8
     np_idx, _, _ = assign_batch_np(obs, es, 2, 1)
     np.testing.assert_array_equal(
@@ -149,7 +135,7 @@ def test_sharded_pallas_packed2_matches_numpy():
 
 def test_sharded_pallas_tie_break_and_k1():
     """First-index tie-break across shards and the K=1 next=MAX_COUNT
-    normalization, both through the Pallas shard path."""
+    normalization, both through the kernel's shard path."""
     from fqtk_tpu.parallel.mesh import make_demux_mesh, make_sharded_assign_fn
 
     barcodes = ["AAAA", "CCCC", "GGGG", "TTTT", "AAAT", "CCCG", "GGGA", "TTTC"]
@@ -157,20 +143,19 @@ def test_sharded_pallas_tie_break_and_k1():
     obs = np.frombuffer(b"AAAG", dtype=np.uint8)[None, :].repeat(8, axis=0)
     mesh = make_demux_mesh(n_batch=2, n_whitelist=4)
     fn = make_sharded_assign_fn(
-        es, 2, 0, mesh, use_pallas=True, interpret=True, tile_b=4, tile_k=128
+        es, 2, 0, mesh, packed2=True, use_kernel=True, interpret=True
     )
-    assigned, _ = fn(obs)
+    assigned, _ = fn(pack_bit2(obs))
     np.testing.assert_array_equal(
         np.asarray(assigned), np.zeros(8, dtype=np.int32)
     )
 
     es1 = ExpectedSet.from_barcodes(["ACGT"])
     obs1 = np.frombuffer(b"ACGTACGA", dtype=np.uint8).reshape(2, 4)
-    mesh1 = make_demux_mesh(n_batch=2, n_whitelist=4)
     fn1 = make_sharded_assign_fn(
-        es1, 1, 2, mesh1, use_pallas=True, interpret=True, tile_b=4, tile_k=128
+        es1, 1, 2, mesh, packed2=True, use_kernel=True, interpret=True
     )
-    assigned1, counts1 = fn1(obs1)
+    assigned1, counts1 = fn1(pack_bit2(obs1))
     np_idx, _, _ = assign_batch_np(obs1, es1, 1, 2)
     expect1 = np.where(np_idx < 0, 1, np_idx)
     np.testing.assert_array_equal(np.asarray(assigned1), expect1)
